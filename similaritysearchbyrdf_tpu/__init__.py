@@ -1,6 +1,6 @@
-"""similaritysearchbyrdf_tpu — a TPU-native Dynamic Partition Forest.
+"""similaritysearchbyrdf_tpu — a Dynamic Partition Forest on JAX.
 
-A brand-new JAX/XLA/Pallas implementation of the capabilities of the
+A JAX/XLA implementation of the capabilities of the
 Random Draw Forest / Dynamic Partition Forest ANN engine (the reference
 Scala/JVM system described in SURVEY.md): LSH compound hashing (angle and
 p-stable families), a forest of data-adaptively deepening bucket tables,

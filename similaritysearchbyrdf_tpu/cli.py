@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 import numpy as np
@@ -89,6 +90,11 @@ def main(argv=None) -> int:
     q.set_defaults(fn=cmd_query)
 
     args = p.parse_args(argv)
+    from .utils.device import enable_compile_cache
+
+    # the checkout root (the directory holding the package)
+    enable_compile_cache(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
     return args.fn(args)
 
 

@@ -1,4 +1,4 @@
-"""Configuration system for the TPU-native Dynamic Partition Forest.
+"""Configuration system for the Dynamic Partition Forest.
 
 Mirrors the reference's Typesafe-Config (HOCON) key space (the full `mclab.*`
 namespace is enumerated in the reference at
@@ -10,7 +10,7 @@ Two entry points:
   * :class:`RDFConfig` — the typed config used by the whole framework.
   * :func:`from_hocon_dict` / :func:`parse_hocon` — accept the reference's flat
     `mclab.*` key-value space (e.g. parsed from a `.conf` file) so existing
-    reference configs can drive the TPU build unmodified.
+    reference configs can drive this build unmodified.
 """
 
 from __future__ import annotations
@@ -126,62 +126,51 @@ class RDFConfig:
     working_dir_root: str = "PersistIndex"  # mclab.lsh.workingDirRoot
     ram_threshold: int = 2 ** 31 - 1        # mclab.lsh.ramThreshold
 
-    # --- threads in the reference; batch-shape knobs on TPU ---
+    # --- threads in the reference; batch-shape knobs here ---
     # The reference's insertThreadNum/queryThreadNum become batching knobs:
-    # TPU processes all tables at once, so these only control host chunking.
+    # the device processes all tables at once, so these only control host
+    # chunking.
     fit_batch_size: int = 8192            # vectors hashed per device step
     query_batch_size: int = 256           # queries per device step
 
-    # --- TPU-specific static-shape caps (SURVEY.md §7 hard part (b)) ---
+    # --- static-shape caps (SURVEY.md §7 hard part (b)) ---
     max_candidates: int = 4096            # per-query flattened candidate cap
     sparse_nnz_pad: int = 128             # padded nnz for sparse batches
     # dtype of the device-resident corpus used for exact re-ranking.
-    # "bfloat16" halves HBM traffic of the candidate gather (the query hot
-    # spot) and index memory, at ~3 decimal digits of score precision —
-    # ranking of top-10 candidates is essentially unaffected. f32 default
-    # keeps bit-exact parity with the scalar oracle.
+    # "bfloat16" halves the bytes of the candidate gather and the index
+    # memory, at ~3 decimal digits of score precision. f32 default keeps
+    # bit-exact parity with the scalar oracle.
     rerank_dtype: str = "float32"         # float32 | bfloat16
-    # Table-ordered coarse scoring tier (TPU extension; no reference
-    # counterpart). When set, the fit keeps a low-dim (coarse_dim) random
-    # projection of every corpus row PER TABLE IN BUCKET-SORTED ORDER, so
-    # coarse candidate scoring gathers CONTIGUOUS blocks (gather cost on
-    # TPU is per-index, so scoring 32k candidates costs ~4k block gathers
-    # instead of 32k row gathers). Only the top `coarse_refine` coarse
-    # candidates are exactly re-scored at full precision. Costs
-    # L × N × coarse_dim × 2 bytes of HBM.
-    # route angle hashing through the Pallas fused matmul+sign+bitpack
-    # kernel (measured ~10% faster than the XLA path on v5e at bench
-    # shapes; bit-identical — scripts/bench_pallas_hash.py)
-    use_pallas_hash: bool = False
+    # Table-ordered coarse scoring tier (no reference counterpart). When
+    # set, the fit keeps a low-dim (coarse_dim) random projection of every
+    # corpus row PER TABLE IN BUCKET-SORTED ORDER, so coarse candidate
+    # scoring gathers CONTIGUOUS blocks instead of one row per candidate.
+    # Only the top `coarse_refine` coarse candidates are exactly re-scored
+    # at full precision. Costs L × N × coarse_dim bytes (int8).
     coarse_dim: Optional[int] = None      # projection dim; = vector_dim for
     #                                       full-dim (no projection loss)
     coarse_dtype: str = "int8"            # int8 | bfloat16 storage
     coarse_refine: int = 2048             # exact-rescore width
     # aligned-window flatten for the coarse gather: -1 auto (64-slot
-    # windows when max_candidates >= 32768 — the regime where the Pallas
-    # DMA gather's bandwidth win beats the per-range window round-up),
-    # 0 force block mode, >0 explicit window size in slots
+    # windows when max_candidates >= 32768), 0 force block mode, >0
+    # explicit window size in slots
     coarse_window: int = -1
-    # two-phase window pruning (TPU extension, round 3): a mean-pooled
-    # "head" tier (one bf16 row per `coarse_head_pool` consecutive
-    # table-ordered coarse rows) is scored with fast row gathers FIRST,
-    # and only the top `coarse_keep` windows per query pay the window DMA
-    # + wide select. Attacks the ~1.2 us/descriptor DMA floor (the
-    # Deep-8M coarse stage is descriptor-bound: 57 of a 123 ms chunk).
+    # two-phase window pruning: a mean-pooled "head" tier (one bf16 row per
+    # `coarse_head_pool` consecutive table-ordered coarse rows) is scored
+    # with row gathers FIRST, and only the top `coarse_keep` windows per
+    # query pay the window gather + wide select.
     # coarse_head_pool=0 disables the tier; coarse_keep=0 disables pruning
     # (tier may still be built for per-call opt-in via `window_keep`).
     coarse_head_pool: int = 0             # rows pooled per head row (e.g. 64)
     coarse_keep: int = 0                  # windows kept per query (0 = all)
-    # coarse tier LAYOUT (TPU extension, round 3): "lane" packs G = 128/cs
-    # TABLES per 128-lane row (window DMAs read 128 B per candidate slot);
-    # "folded" packs fold = 128/cs CONSECUTIVE slots of ONE table per row —
-    # every fetched byte is a candidate byte, so the same descriptor budget
-    # covers fold x more candidates — and queries run the groupmax path
-    # (in-kernel argmax packing, ops/pallas/coarse_fold.py): the select
-    # sees one int32 per `coarse_group` slots and only the top
-    # `coarse_rows_keep` rows per group are exactly re-ranked. int8 only.
+    # coarse tier LAYOUT: "lane" packs G = 128/cs TABLES per 128-lane row;
+    # "folded" packs fold = 128/cs CONSECUTIVE slots of ONE table per row,
+    # and queries run the groupmax path (argmax-packed per-row maxima,
+    # index/forest.rowmax_packed): the select sees one int32 per
+    # `coarse_group` slots and only the top `coarse_rows_keep` rows per
+    # group are exactly re-ranked. int8 only.
     coarse_layout: str = "lane"           # lane | folded
-    # coarse projection basis: "random" = seeded QR (round-1 default);
+    # coarse projection basis: "random" = seeded QR;
     # "pca" = top-cd eigenvectors of the corpus's uncentered second moment
     # (deterministic in the corpus — better coarse rank order at the same
     # cd, so the same recall needs a smaller coarse_refine)
@@ -190,7 +179,7 @@ class RDFConfig:
     # over-select groups by this factor, dedup candidate ids (two sorts),
     # truncate back to coarse_refine UNIQUE candidates: the exact rerank
     # pays per slot, but ~half the selected slots are the same row reached
-    # from different tables (scripts/check_fold_dups.py) — 1 = off
+    # from different tables — 1 = off
     coarse_select_mult: int = 1
     # rows exactly re-ranked per selected group: 0 = the WHOLE group
     # (groups select, slots re-rank — contiguous gathers; the default),
@@ -198,14 +187,12 @@ class RDFConfig:
     coarse_rows_keep: int = 0
     # staged rerank (folded layout, rows_keep=0): int8-rescore every slot
     # of the selected groups, dedup ids in coarse-score order, and exact-
-    # score only the best `coarse_stage2` unique ids (the exact stage pays
-    # ~20 ns per fetched row — 54% of the shipped Deep-8M chunk). 0 = off
-    # (every selected slot is exactly scored, the r4 behavior)
+    # score only the best `coarse_stage2` unique ids. 0 = off (every
+    # selected slot is exactly scored)
     coarse_stage2: int = 0
-    # engine selector (TPU extension): "forest" = the reference-semantics
-    # DPF index; "flat" = the quantized-flat MXU scan (ops/flat.py) behind
-    # the same front-end surface — fastest for HBM-resident dense corpora,
-    # no steps/probe knobs (it scores every row)
+    # engine selector: "forest" = the reference-semantics DPF index;
+    # "flat" = the quantized-flat sketch scan (ops/flat.py) behind the
+    # same front-end surface — no steps/probe knobs (it scores every row)
     engine: str = "forest"
 
     # --- reproducibility ---
@@ -244,6 +231,8 @@ class RDFConfig:
     @staticmethod
     def from_json(s: str) -> "RDFConfig":
         d = json.loads(s)
+        # configs saved before the hash kernel was removed carry its switch
+        d.pop("use_pallas_hash", None)
         d["pstable"] = PStableConfig(**d.get("pstable", {}))
         d["lsh_table"] = TableConfig(**d.get("lsh_table", {}))
         d["data_table"] = TableConfig(**d.get("data_table", {}))

@@ -1,4 +1,4 @@
-"""Dense front-end — the `DensevectorRDFInit` API surface on TPU.
+"""Dense front-end — the `DensevectorRDFInit` API surface.
 
 Method-for-method coverage of the reference front-end
 (`deploy/DensevectorRDFInit.scala:50-557`): init, single/multi-"thread" fit
@@ -101,7 +101,7 @@ class DenseRDFInit:
     def new_multi_thread_fit(self, file_name: str,
                              conf: Optional[RDFConfig] = None,
                              limit: Optional[int] = None) -> DenseBatch:
-        """Identical to `new_fast_fit`: on TPU all tables are hashed by one
+        """Identical to `new_fast_fit`: all tables are hashed by one
         batched einsum, so the reference's thread-per-table-range fit
         (`:161-206`) has no separate fast path."""
         return self.new_fast_fit(file_name, conf, limit)
@@ -109,7 +109,7 @@ class DenseRDFInit:
     newMultiThreadFit = new_multi_thread_fit
 
     def fit_batch(self, batch: DenseBatch) -> None:
-        """Array-native fit (no file) — the natural TPU entry point."""
+        """Array-native fit (no file) — the natural device entry point."""
         self._require().fit(batch)
         self._all_vectors = batch
 
@@ -137,8 +137,7 @@ class DenseRDFInit:
     def query_batch(self, keys: Sequence[int], steps: int = 0) -> List[List[int]]:
         """Batch query by key — `queryBatch` (`:311-317`). The reference
         loops single-key queries; here all requested keys resolve to rows
-        host-side and go through ONE batched device query (a remote-attached
-        TPU pays a round trip per device call)."""
+        host-side and go through ONE batched device query."""
         forest = self._require()
         if self._all_vectors is None:
             print("need to fit the data first")

@@ -2,7 +2,7 @@
 
 `RandomDrawTreeMap` implements `ConcurrentMap<K, V>` (put/get/remove/
 putIfAbsent/replace/clear/size + key/value/entry iteration +
-`getSimilar*`); the TPU forest is an immutable array snapshot, so this
+`getSimilar*`); the device forest is an immutable array snapshot, so this
 facade keeps a host-side staging dict and rebuilds the device index lazily
 on the next similarity read — the batch analogue of the reference's
 per-point trie mutation (`put:1557`, `remove:1817`, `putIfAbsent:2499`,

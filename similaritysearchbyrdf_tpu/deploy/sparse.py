@@ -1,4 +1,4 @@
-"""Sparse front-end — the `SparsevectorRDFInit` API surface on TPU
+"""Sparse front-end — the `SparsevectorRDFInit` API surface
 (`deploy/SparsevectorRDFInit.scala:51-553`, the mirror of the dense
 front-end for SparseVector data)."""
 
@@ -80,8 +80,7 @@ class SparseRDFInit:
 
     def query_batch(self, keys: Sequence[int], steps: int = 0) -> List[List[int]]:
         """Batch query by key in ONE device call (the reference loops
-        single-key queries; a remote-attached TPU pays a round trip per
-        call)."""
+        single-key queries)."""
         forest = self._require()
         if self._all_vectors is None:
             print("need to fit the data first")

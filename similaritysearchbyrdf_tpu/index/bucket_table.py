@@ -15,7 +15,7 @@ structure (derived from the put/search paths, `putInner:1662-1790`,
     prefix; a chain splits one level deeper when an insert finds it at
     >= BUCKET_OVERFLOW and level >= 1 (`:1719-1768`).
 
-Flattened TPU encoding, per table:
+Flattened array encoding, per table:
 
   key[i]  = partition ‖ seg ‖ trie-bits   (uint32, right-aligned)
   sorted ascending → every (prefix, depth) bucket is a contiguous range.
@@ -219,7 +219,7 @@ def _depths_progressive(
         pref = sorted_keys >> jnp.uint32(s)
         # each element's prefix-group bounds come from run boundaries of the
         # (already sorted) keys — pure prefix scans, no binary searches
-        # (this is what makes the build O(N) per depth on the VPU)
+        # (this is what makes the build O(N) per depth)
         bm = jnp.concatenate(
             [jnp.ones((l, 1), dtype=bool), pref[:, 1:] != pref[:, :-1]],
             axis=1,
@@ -387,8 +387,8 @@ def lookup_ranges(
     array materialization.
 
     Fast path (when the build packed bucket records): rank every probe with
-    a merge-based `searchsorted(method='sort')` (TPU sorts are VPU-wide;
-    per-step binary-search gathers cost per element), then ONE 16-byte
+    a merge-based `searchsorted(method='sort')` (per-step binary-search
+    gathers cost per element), then ONE 16-byte
     packed-record gather per probe yields (key, shift, start, end) for the
     prefix-validity check. The generic path does the same with four narrow
     gathers.
@@ -404,15 +404,13 @@ def lookup_ranges(
 
         def per_table_fast(bk, rec, q):
             # rank probes against bucket boundaries. Merge-based rank (one
-            # VPU-wide sort of [NB + Q]) wins while the bucket array is
-            # within ~16x of the probe count. At Deep-scale bucket counts
-            # (>=150k/table at 8M rows) the sort's NB term dominates;
-            # there a DECIMATED two-level rank wins: merge-rank against
-            # every DEC-th boundary (a small sort), then log2(DEC)
-            # vectorized element-gather binary steps inside the DEC-wide
-            # span — ~6 gathers/probe instead of log2(NB)~19 (measured:
-            # the lookup stage was 40.8 ms of a 137 ms Deep-8M window
-            # query chunk, results/bisect_deep8m_window.json).
+            # sort of [NB + Q]) while the bucket array is within ~16x of
+            # the probe count. At Deep-scale bucket counts (>=150k/table
+            # at 8M rows) the sort's NB term dominates; there a DECIMATED
+            # two-level rank: merge-rank against every DEC-th boundary (a
+            # small sort), then log2(DEC) vectorized element-gather binary
+            # steps inside the DEC-wide span — ~6 gathers/probe instead of
+            # log2(NB)~19.
             nb = bk.shape[0]
             if nb <= max(4096, 2 * q.shape[0]):
                 b_idx = (

@@ -30,7 +30,7 @@ class DynamicForest:
     # k + bucket(len(tombstones)) results, where bucket() rounds UP to one
     # of these values — so a removal stream triggers at most
     # len(OVERFETCH_BUCKETS) distinct compiled query shapes instead of one
-    # per tombstone count (remote-TPU recompiles cost minutes each).
+    # per tombstone count (each new shape recompiles the query).
     OVERFETCH_BUCKETS = (0, 16, 64)
     TOMBSTONE_LIMIT = OVERFETCH_BUCKETS[-1]
 

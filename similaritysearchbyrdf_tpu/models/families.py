@@ -3,7 +3,7 @@
 The hash functions are the *model* of an LSH engine (the reference
 checkpoints them as its model, `LSH.scala:173-195`). This module replaces the
 reference's object-per-function design (`AngleHashFamily.scala`,
-`PStableHashFamily.scala`) with dense parameter tensors shaped for the MXU:
+`PStableHashFamily.scala`) with dense parameter tensors shaped for batched matmuls:
 
   proj[T, C, D]   — projection rows for tableNum base chains of chainLength
   perm[T, P, C]   — per-(table, permutation) function-order permutation
@@ -42,11 +42,6 @@ class HashModel:
     type_of_index: str = dataclasses.field(
         metadata=dict(static=True), default="original"
     )
-    # prebuilt block-diagonal permutation-pack weight halves for the Pallas
-    # fused hash kernel (conf.use_pallas_hash; angle family only) — the
-    # permutation must be concrete to build these, so they live on the model
-    pack_whi: Optional[jax.Array] = None   # f32[T*C, T*P]
-    pack_wlo: Optional[jax.Array] = None   # f32[T*C, T*P]
 
     @property
     def table_num(self) -> int:
@@ -159,14 +154,6 @@ def generate_pstable_model(conf: RDFConfig, seed: Optional[int] = None) -> HashM
     )
 
 
-def with_pallas_pack(model: HashModel) -> HashModel:
-    """Attach the prebuilt Pallas pack-weight matrices (angle family)."""
-    from ..ops.pallas.hash_kernel import _prepare_weights
-
-    whi, wlo = _prepare_weights(model)
-    return dataclasses.replace(model, pack_whi=whi, pack_wlo=wlo)
-
-
 def generate_model(conf: RDFConfig, seed: Optional[int] = None) -> HashModel:
     """Family dispatch — `LSH.initHashChains` (`LSH.scala:29-53`), including
     the load-from-file path (`generateMethod=fromfile`, `LSH.scala:69-77`)."""
@@ -187,10 +174,7 @@ def generate_model(conf: RDFConfig, seed: Optional[int] = None) -> HashModel:
                 raise ValueError("generate_method=fromfile requires family_file_path")
         return load_model_file(path, conf)
     if conf.family_name == "angle":
-        model = generate_angle_model(conf, seed)
-        if getattr(conf, "use_pallas_hash", False):
-            model = with_pallas_pack(model)
-        return model
+        return generate_angle_model(conf, seed)
     if conf.family_name == "pStable":
         return generate_pstable_model(conf, seed)
     raise ValueError(f"{conf.family_name!r} is not a valid family name")

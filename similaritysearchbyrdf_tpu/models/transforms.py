@@ -42,7 +42,7 @@ def sampling_one_key(keys: jax.Array, perm: jax.Array) -> jax.Array:
     (`Sampling.scala:32-39`)."""
     k = as_u32(keys)
     out = jnp.zeros_like(k)
-    for j in range(32):  # static unroll: 32 shifts/ors on the VPU
+    for j in range(32):  # static unroll: 32 elementwise shifts/ors
         bit = (k >> perm[j].astype(jnp.uint32)) & jnp.uint32(1)
         out = out | (bit << jnp.uint32(31 - j))
     return out

@@ -1,4 +1,4 @@
-// Native bulk dataset parser for the TPU forest's host-side data path.
+// Native bulk dataset parser for the forest's host-side data path.
 //
 // The reference's ingest is line-at-a-time Scala string splitting on the JVM
 // (`Vectors.parseDense`, `Vector.scala:215-219`; `Vectors.fromString`,

@@ -2,7 +2,7 @@
 
 The reference does all of this one int at a time on the JVM
 (`Sampling.scala`, `significantBits.scala`, `ByteArrayWrapper.scala`); here
-every op is an elementwise VPU op over whole hash batches.
+every op is elementwise over whole hash batches.
 """
 
 from __future__ import annotations

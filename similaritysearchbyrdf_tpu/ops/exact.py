@@ -1,10 +1,10 @@
 """Exact (brute-force) search — the framework's ground-truth engine.
 
 The reference computes ground truth offline in python and loads it from
-files (`getTopKGroundTruth`); a TPU framework should produce it at MXU
-speed. `exact_topk` streams the corpus in chunks (peak memory bounded by
-`chunk × B` scores, never `N × B`), scoring on the MXU and keeping a running
-top-k. Also the honest baseline ANN must beat: on small corpora brute force
+files (`getTopKGroundTruth`); here it is produced on the device.
+`exact_topk` streams the corpus in chunks (peak memory bounded by
+`chunk × B` scores, never `N × B`), scoring with a matmul and keeping a
+running top-k. Also the honest baseline ANN must beat: on small corpora brute force
 IS the fastest search.
 """
 
@@ -20,7 +20,7 @@ import numpy as np
 
 def _top_k(scores: jax.Array, ids: jax.Array, k: int) -> Tuple[jax.Array, jax.Array]:
     """top-k of (scores, ids) along the last axis. lax.top_k costs O(n*k);
-    beyond small k a full descending sort is cheaper on TPU."""
+    beyond small k a full descending sort is cheaper."""
     if k <= 32:
         s, ti = jax.lax.top_k(scores, k)
         return s, jnp.take_along_axis(ids, ti, axis=-1)
@@ -50,11 +50,10 @@ def exact_topk(
     def body(carry, ci):
         best_s, best_i = carry
         rows = jax.lax.dynamic_slice_in_dim(corpus_p, ci * chunk, chunk)
-        # HIGHEST: ground truth must be TRUE f32 ordering — the MXU's
-        # default f32 matmul truncates operands to bf16, and a GT computed
-        # that way cannot detect the same truncation in an engine's
-        # "exact" tier (see ops/flat._exact_refine). ~6x the one-off GT
-        # matmul cost; GT is cached by the benches.
+        # HIGHEST: ground truth must be TRUE f32 ordering — a
+        # default-precision f32 matmul may round its operands (TF32 on the
+        # GPU), and a GT computed that way cannot detect the same rounding
+        # in an engine's "exact" tier (see ops/flat._exact_refine).
         scores = jnp.einsum(
             "nd,bd->bn", rows, q, preferred_element_type=jnp.float32,
             precision=jax.lax.Precision.HIGHEST,

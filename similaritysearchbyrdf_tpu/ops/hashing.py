@@ -1,4 +1,4 @@
-"""Batched LSH compound hashing — the MXU hot path.
+"""Batched LSH compound hashing.
 
 Replaces the reference's per-vector, per-table scalar loops (HOT LOOP #1 in
 SURVEY.md §3.2: `AngleHashChain.compute`, `AngleHashFamily.scala:187-219`;
@@ -10,7 +10,6 @@ whole batch come out of a single jitted call.
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import jax
@@ -21,13 +20,21 @@ from ..models.transforms import apply_type_of_index
 from .bitops import as_u32, java_bytes_hash_of_ints, pack_bits_msb_first
 
 
-def _project(model: HashModel, x: jax.Array, precision=None) -> jax.Array:
-    """dots[b, t, c] = <x_b, proj_{t,c}> on the MXU."""
+# Hash bits are signs of dots, so a dot that rounds across zero flips a
+# bit. A default-precision f32 matmul may round its operands (TF32 on the
+# GPU); HIGHEST keeps every backend's signs equal to an f32 reference's
+# outside |dot| ~ 1e-6. The projection is [B, D] x [D, T*C], small next to
+# the rest of a query.
+_PRECISION = jax.lax.Precision.HIGHEST
+
+
+def _project(model: HashModel, x: jax.Array) -> jax.Array:
+    """dots[b, t, c] = <x_b, proj_{t,c}>."""
     return jnp.einsum(
         "bd,tcd->btc",
         x,
         model.proj,
-        precision=precision,
+        precision=_PRECISION,
         preferred_element_type=jnp.float32,
     )
 
@@ -64,29 +71,19 @@ def _pack_chains(model: HashModel, dots: jax.Array) -> jax.Array:
     #                          `AngleHashFamily.scala:144`
 
 
-@functools.partial(jax.jit, static_argnames=("precision",))
-def hash_dense(model: HashModel, x: jax.Array, precision=None) -> jax.Array:
+@jax.jit
+def hash_dense(model: HashModel, x: jax.Array) -> jax.Array:
     """Hash a dense batch `[B, D]` into `[B, L]` uint32 table indexes,
     including the typeOfIndex post-transform (`LSH.calculateIndex`,
-    `LSH.scala:135-166`). Models carrying prebuilt pack weights
-    (conf.use_pallas_hash) route through the Pallas fused kernel —
-    bit-identical, ~10% faster on v5e."""
-    if model.pack_whi is not None and model.family == "angle":
-        from .pallas.hash_kernel import _call
-
-        interpret = jax.default_backend() != "tpu"
-        return _call(
-            model, model.pack_whi, model.pack_wlo,
-            x.astype(jnp.float32), 256, interpret,
-        )
-    dots = _project(model, x.astype(jnp.float32), precision)
+    `LSH.scala:135-166`)."""
+    dots = _project(model, x.astype(jnp.float32))
     h = _pack_chains(model, dots)
     return apply_type_of_index(h, model.type_of_index, model.sampling_perm)
 
 
-@functools.partial(jax.jit, static_argnames=("precision",))
+@jax.jit
 def hash_dense_with_margins(
-    model: HashModel, x: jax.Array, precision=None
+    model: HashModel, x: jax.Array
 ) -> Tuple[jax.Array, jax.Array]:
     """Like `hash_dense` but also returns per-packed-bit flip margins
     `f32[B, L, 32]`: margin of bit i = |<x, proj of the function packed at
@@ -99,7 +96,7 @@ def hash_dense_with_margins(
         raise ValueError(
             "bit margins require the angle family with typeOfIndex=original"
         )
-    dots = _project(model, x.astype(jnp.float32), precision)   # [B, T, C]
+    dots = _project(model, x.astype(jnp.float32))              # [B, T, C]
     bits = (dots > 0).astype(jnp.int32)
     permuted_bits = jnp.take_along_axis(
         bits[:, :, None, :], model.perm[None, :, :, :], axis=-1
@@ -124,17 +121,16 @@ def hash_dense_with_margins(
     return h.reshape(b, l), margins.reshape(b, l, 32)
 
 
-@functools.partial(jax.jit, static_argnames=("precision",))
+@jax.jit
 def hash_sparse(
     model: HashModel,
     indices: jax.Array,   # [B, NNZ] int32 (padded with 0)
     values: jax.Array,    # [B, NNZ] f32   (padded with 0.0)
-    precision=None,
 ) -> jax.Array:
     """Hash a padded sparse batch into `[B, L]` uint32 table indexes.
 
     The padded-COO dot with every projection row is a gather of projection
-    columns + weighted sum — the TPU equivalent of the reference's
+    columns + weighted sum — the batched equivalent of the reference's
     BitSet-intersect sparse dot (`SimilarityCalculator.scala:9-27`). Padding
     values are 0 so they contribute nothing.
     """
@@ -142,7 +138,8 @@ def hash_sparse(
     proj_cols = model.proj.reshape(t * c, d).T        # [D, T*C]
     gathered = jnp.take(proj_cols, indices, axis=0)   # [B, NNZ, T*C]
     dots = jnp.einsum(
-        "bn,bnk->bk", values, gathered, preferred_element_type=jnp.float32
+        "bn,bnk->bk", values, gathered, preferred_element_type=jnp.float32,
+        precision=_PRECISION,
     ).reshape(values.shape[0], t, c)
     h = _pack_chains(model, dots)
     return apply_type_of_index(h, model.type_of_index, model.sampling_perm)
@@ -152,7 +149,7 @@ def hash_sparse_densify(
     model: HashModel, indices: jax.Array, values: jax.Array
 ) -> jax.Array:
     """Alternative sparse hash: scatter the batch to dense `[B, D]` and use
-    the MXU path. Preferable when D is small enough that `B*D` fits
+    the dense path. Preferable when D is small enough that `B*D` fits
     comfortably (auto-selected by the front-end)."""
     b, nnz = indices.shape
     d = model.proj.shape[2]

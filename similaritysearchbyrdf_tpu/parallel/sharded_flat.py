@@ -1,9 +1,9 @@
 """Mesh-sharded quantized-flat engine: P7 distribution for `ops/flat.py`.
 
 Each device holds a row shard of the int8/bf16 sketch + f32 corpus
-(Deep-100M at 96d: ~0.77 GB sketch + 38.4/ndev GB corpus per chip on a
-v5e-16 slice); queries are replicated, the shard-local scan+refine is the
-single-chip `flat_topk`, and the only collective is one ICI all-gather of
+(Deep-100M at 96d, lane-padded to 128, over four cards: 3.2 GB sketch
++ 12.8 GB corpus per card); queries are replicated, the shard-local scan+refine is the
+single-device `flat_topk`, and the only collective is one all-gather of
 per-shard top-k (k·ndev tiny) followed by a replicated merge — the same
 merge contract as the sharded forest (`sharded_forest._local_query`).
 
@@ -31,42 +31,6 @@ class ShardedFlatState(NamedTuple):
     sketch: jax.Array     # int8/bf16 [ndev*Nloc, D], row-sharded
     corpus: jax.Array     # f32     [ndev*Nloc, D], row-sharded
     row_ids: jax.Array    # i32     [ndev*Nloc], row-sharded (-1 = pad)
-    # optional strided second sketch copy for the halved gmax reduce
-    # (grouped mode; see ops/flat.stride_for_halved_gmax). Per shard it is
-    # the LOCAL sketch padded to an 8192-row multiple then block-strided —
-    # [ndev*NpadLoc, D], row-sharded.
-    sketch_gmax: Optional[jax.Array] = None
-
-
-def _host_gmax_strided(sk: np.ndarray, ndev: int, nloc: int) -> np.ndarray:
-    """Per-shard strided copies of a row-sharded host sketch [ndev*nloc, D]:
-    each shard's rows pad to an 8192 multiple and block-stride
-    (ops/flat.stride_for_halved_gmax — pure reshape/swapaxes, works on
-    numpy). Returns [ndev*npad_loc, D]."""
-    from ..ops.flat import _BLOCK_N, stride_for_halved_gmax
-
-    d = sk.shape[1]
-    npad_loc = int(np.ceil(nloc / _BLOCK_N)) * _BLOCK_N
-    out = np.zeros((ndev, npad_loc, d), dtype=sk.dtype)
-    out[:, :nloc] = sk.reshape(ndev, nloc, d)
-    return np.ascontiguousarray(
-        stride_for_halved_gmax(out.reshape(ndev * npad_loc, d),
-                               block_n=_BLOCK_N)
-    )
-
-
-def _auto_strided_copy(sketch_dtype: str, nloc: int, dpad: int) -> bool:
-    """Mirror ops/flat.FlatIndex._ensure_gmax_sketch: build the strided
-    gmax copy whenever the PER-SHARD select will resolve to argpack and
-    the query-major tile plan holds — the shipped qlane kernel consumes
-    it (2x sketch HBM for the no-transpose gmax path)."""
-    from ..ops.flat import (_GMAX_QLANE, _SELECT_MODE, _gmax_tile_plan,
-                            _resolve_select_mode)
-
-    return (_GMAX_QLANE and sketch_dtype == "int8"
-            and _resolve_select_mode(
-                _SELECT_MODE, jnp.int8, nloc, dpad) == "argpack"
-            and bool(_gmax_tile_plan(dpad)[0]))
 
 
 def fit_flat_sharded(
@@ -74,7 +38,6 @@ def fit_flat_sharded(
     ids: np.ndarray,               # i32[N] user ids
     mesh: Optional[Mesh] = None,
     sketch_dtype: str = "int8",
-    gmax_halved: Optional[bool] = None,
 ) -> Tuple[ShardedFlatState, Mesh]:
     mesh = mesh or make_forest_mesh()
     ndev = mesh.shape[SHARD_AXIS]
@@ -85,16 +48,11 @@ def fit_flat_sharded(
     x[:n] = values
     rid = np.full((npad,), -1, dtype=np.int32)
     rid[:n] = ids
-    dp = int(np.ceil(d / 128.0) * 128)       # 128-lane rows (fast gathers,
-    x = np.pad(x, ((0, 0), (0, dp - d)))      # DMA-sliceable windows)
-    sk_gm = None
-    if gmax_halved is None:
-        gmax_halved = _auto_strided_copy(sketch_dtype, nloc, dp)
+    dp = int(np.ceil(d / 128.0) * 128)       # 128-lane rows, as the
+    x = np.pad(x, ((0, 0), (0, dp - d)))      # single-device sketch
     if sketch_dtype == "int8":
         scale = 127.0 / max(float(np.max(np.abs(values))), 1e-30)
         sk = np.clip(np.round(x * scale), -127, 127).astype(np.int8)
-        if gmax_halved:
-            sk_gm = _host_gmax_strided(sk, ndev, nloc)
     elif sketch_dtype == "bfloat16":
         sk = jnp.asarray(x).astype(jnp.bfloat16)
     else:
@@ -104,8 +62,6 @@ def fit_flat_sharded(
         sketch=jax.device_put(sk, shard),
         corpus=jax.device_put(x, shard),
         row_ids=jax.device_put(rid, shard),
-        sketch_gmax=(jax.device_put(sk_gm, shard)
-                     if sk_gm is not None else None),
     )
     return state, mesh
 
@@ -158,7 +114,6 @@ def fit_flat_sharded_distributed(
     local_ids: np.ndarray,           # i32[n_local]
     mesh: Optional[Mesh] = None,
     sketch_dtype: str = "int8",
-    gmax_halved: Optional[bool] = None,
 ) -> Tuple[ShardedFlatState, Mesh]:
     """Multi-process flat-engine fit: every process supplies only its
     host-local rows; sketch/corpus/row_ids are assembled as distributed
@@ -194,21 +149,11 @@ def fit_flat_sharded_distributed(
             out_shardings=NamedSharding(mesh, P(SHARD_AXIS)),
         )
         sk_d = cast(sk_d)
-    skg_d = None
-    if gmax_halved is None:
-        gmax_halved = _auto_strided_copy(sketch_dtype, nloc, dp)
-    if gmax_halved and sketch_dtype == "int8":
-        skg = _host_gmax_strided(
-            sk.reshape(ndev_local * nloc, dp), ndev_local, nloc)
-        npad_loc = skg.shape[0] // ndev_local
-        (skg_d,) = _distributed_rows(
-            mesh, [skg.reshape(ndev_local, npad_loc, dp)], npad_loc)
-    return ShardedFlatState(sketch=sk_d, corpus=x_d, row_ids=rid_d,
-                            sketch_gmax=skg_d), mesh
+    return ShardedFlatState(sketch=sk_d, corpus=x_d, row_ids=rid_d), mesh
 
 
 def _gather_merge_topk(ids, scores, k):
-    """ICI all-gather of per-shard top-k + replicated merge — the single
+    """All-gather of per-shard top-k + replicated merge — the single
     collective of every sharded engine's read path."""
     g_ids = jax.lax.all_gather(ids, SHARD_AXIS)          # [ndev, B, k]
     g_scores = jax.lax.all_gather(scores, SHARD_AXIS)
@@ -223,16 +168,14 @@ def _gather_merge_topk(ids, scores, k):
 
 def _local_flat_query(sketch, corpus, row_ids, queries, query_ids,
                       *, k, refine, block, exclude_self, mode="scan",
-                      r_groups=24, sketch_gmax=None):
+                      r_groups=24):
     if mode == "grouped":
-        # shard-local grouped pipeline (fused gmax kernel + window
-        # rescore, ops/flat.flat_topk_grouped) — the per-chip fast path;
-        # sketch_gmax (when fit built it) enables the halved reduce
+        # shard-local grouped pipeline (fused group max + window rescore,
+        # ops/flat.flat_topk_grouped) — the per-device fast path
         ids, scores = flat_topk_grouped(
             sketch, corpus, row_ids, queries, query_ids, k,
             refine=refine, r_groups=max(r_groups, 3 * k),
             exclude_self=exclude_self,
-            sketch_gmax=sketch_gmax, gmax_halved=sketch_gmax is not None,
         )
     else:
         ids, scores = flat_topk(
@@ -250,30 +193,10 @@ def make_flat_query_fn(
     exclude_self: bool = True,
     mode: str = "scan",
     r_groups: int = 24,
-    has_gmax: bool = False,
 ):
-    """(state, queries [B, D] replicated, query_ids [B]) → (ids, scores).
-    has_gmax: the state carries the strided gmax copy (fit with
-    gmax_halved=True) and mode is grouped — the local step then runs the
-    halved reduce."""
+    """(state, queries [B, D] replicated, query_ids [B]) → (ids, scores)."""
     kw = dict(k=k, refine=refine, block=block, exclude_self=exclude_self,
               mode=mode, r_groups=r_groups)
-    if mode == "grouped" and has_gmax:
-        def local(sk, skg, corpus, rid, q, qi):
-            return _local_flat_query(sk, corpus, rid, q, qi,
-                                     sketch_gmax=skg, **kw)
-
-        fn = jax.shard_map(
-            local, mesh=mesh,
-            in_specs=(P(SHARD_AXIS), P(SHARD_AXIS), P(SHARD_AXIS),
-                      P(SHARD_AXIS), P(), P()),
-            out_specs=(P(), P()),
-            check_vma=False,
-        )
-        return jax.jit(
-            lambda state, q, qi: fn(state.sketch, state.sketch_gmax,
-                                    state.corpus, state.row_ids, q, qi)
-        )
     fn = jax.shard_map(
         functools.partial(_local_flat_query, **kw),
         mesh=mesh,
@@ -478,17 +401,13 @@ class ShardedFlatIndex:
     def __init__(self, mesh: Optional[Mesh] = None,
                  sketch_dtype: str = "int8", refine: int = 128,
                  block: int = 1 << 15, mode: str = "grouped",
-                 r_groups: int = 24, gmax_halved: Optional[bool] = None):
-        from ..ops.flat import _GMAX_HALVED
-
+                 r_groups: int = 24):
         self.mesh = mesh
         self.sketch_dtype = sketch_dtype
         self.refine = refine
         self.block = block
-        self.mode = mode            # "grouped" (per-chip fast path) | "scan"
+        self.mode = mode            # "grouped" (per-device fast path) | "scan"
         self.r_groups = r_groups
-        self.gmax_halved = (_GMAX_HALVED if gmax_halved is None
-                            else gmax_halved)
         self.state = None
         self._qfn = {}
 
@@ -497,10 +416,7 @@ class ShardedFlatIndex:
             np.asarray(batch.values, np.float32),
             np.asarray(batch.ids, np.int32),
             self.mesh, self.sketch_dtype,
-            gmax_halved=self.gmax_halved and self.mode == "grouped",
         )
-        # cached query fns bake in has_gmax/mode; a re-fit with different
-        # gmax_halved must not reuse them (ADVICE r2)
         self._qfn = {}
         return self
 
@@ -512,14 +428,12 @@ class ShardedFlatIndex:
             kk = max(k, 1)
             return (np.full((len(queries), kk), -1, np.int32),
                     np.full((len(queries), kk), -np.inf, np.float32))
-        key = (k, exclude_self, self.mode,
-               self.state.sketch_gmax is not None)
+        key = (k, exclude_self, self.mode)
         if key not in self._qfn:
             self._qfn[key] = make_flat_query_fn(
                 self.mesh, k=k, refine=self.refine, block=self.block,
                 exclude_self=exclude_self, mode=self.mode,
                 r_groups=self.r_groups,
-                has_gmax=self.state.sketch_gmax is not None,
             )
         q = jnp.asarray(np.asarray(queries, np.float32))
         qids = (jnp.asarray(np.asarray(query_ids, np.int32))

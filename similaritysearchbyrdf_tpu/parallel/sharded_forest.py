@@ -1,16 +1,16 @@
-"""Mesh-sharded forest: corpus shards per device, ICI top-k merge.
+"""Mesh-sharded forest: corpus shards per device, all-gather top-k merge.
 
 The distributed design the reference paper sketches (content-partitioned
 sub-indexes spread over nodes; Akka remoting configured but dead in the code,
-SURVEY.md §2.5 P7) rebuilt the TPU way (SURVEY.md §7.5):
+SURVEY.md §2.5 P7) rebuilt as one SPMD program (SURVEY.md §7.5):
 
   * the corpus is sharded across a 1-D `Mesh` axis; every device builds a
     complete forest (all L tables) over its rows — building needs zero
     communication;
   * a query batch is replicated; candidate generation + exact re-rank are
-    shard-local (the heavy part rides on-chip memory bandwidth);
+    shard-local (the heavy part rides device-memory bandwidth);
   * the only collective is one `all_gather` of per-shard top-k (k·ndev tiny
-    rows) over ICI, followed by a replicated merge top-k.
+    rows), followed by a replicated merge top-k.
 
 State arrays carry a leading device axis sharded with
 `PartitionSpec('shard')`, so the same pytree works single-host (virtual CPU
@@ -38,7 +38,8 @@ from ..index.bucket_table import (
     _sort_and_depths,
     composite_keys,
 )
-from ..index.forest import _exclude_self, _pad_to, gather_candidates
+from ..index.forest import (_coarse_query, _exclude_self, _pad_to,
+                            gather_candidates)
 from ..index.partitioner import generate_partition_projections, partition_of_hash
 from ..models.families import HashModel, generate_model
 from ..ops import rerank as rerank_ops
@@ -70,7 +71,7 @@ class ShardedForestState:
     coarse_folded: Optional[jax.Array] = None    # i8[ndev, L, caprows/fold, 128]
     # fit-time 128-lane row view of sorted_ids for the folded id fetch
     # (same rationale as ForestState.ids128: building it in-jit re-pays a
-    # pad + minor-dim retiling per query chunk — advisor r3 finding)
+    # pad + relayout per query chunk)
     ids128: Optional[jax.Array] = None           # i32[ndev, L*ceil(cap/128), 128]
 
     def local_tables(self) -> BucketTables:
@@ -150,7 +151,7 @@ def _local_fit(
     rec = _build_records(bk, bs, bsh)
     out = (sk[None], si[None], bk[None], bs[None], bsh[None], rec[None])
     if coarse_proj is not None:
-        low = v @ coarse_proj                                   # [Nloc, Cd]
+        low = _coarse_query(v, coarse_proj)                     # [Nloc, Cd]
         if coarse_int8:
             # per-shard scale: coarse scores are compared only within a
             # shard's own candidate list before its exact re-rank, so the
@@ -442,7 +443,7 @@ def _local_query(
         select_mult=select_mult, stage2=stage2,
     )
 
-    # ICI merge: all-gather each shard's top-k, then a replicated merge —
+    # merge: all-gather each shard's top-k, then a replicated merge —
     # the collective counterpart of the reference's synchronized result-set
     # union (`DensevectorRDFInit.scala:426-429`)
     g_ids = jax.lax.all_gather(ids, SHARD_AXIS)        # [ndev, B, k]

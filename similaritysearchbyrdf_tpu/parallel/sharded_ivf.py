@@ -3,7 +3,7 @@
 Design (the distributed-IVF classic, recast for a JAX mesh):
 
   k-means  GLOBAL spherical Lloyd over row-sharded corpus: each shard
-           assigns its rows against replicated centroids (chunked MXU
+           assigns its rows against replicated centroids (chunked
            matmuls) and contributes one-hot partial sums; `psum` over the
            shard axis merges them — one shard_map program per iteration,
            no scatters, no host round-trips inside an iteration.
@@ -11,9 +11,9 @@ Design (the distributed-IVF classic, recast for a JAX mesh):
            per-cluster ranges over the GLOBAL cluster ids), so cluster c
            is one contiguous window range on every shard.
   query    centroids are replicated: every shard selects the same top
-           `nprobe` clusters (a tiny [B, K] matmul), DMA-scans its local
+           `nprobe` clusters (a tiny [B, K] matmul), window-scans its local
            portion of them, exact-refines locally, and the only collective
-           is the usual ICI all-gather top-k merge (exact f32 scores are
+           is the usual all-gather top-k merge (exact f32 scores are
            comparable across shards; the int8 sketch is only used for
            WITHIN-shard preselection, so per-shard scales would still be
            correct — a global scale is used anyway for uniformity).

@@ -3,7 +3,7 @@
 The reference's storage tier defines a `Serializer<A>` SPI (`Serializer.java`)
 with packed-varint primitives (`DataIO.packInt/packLong`, `DataIO.java`) and
 the mclab codecs (`utils/Serializers.scala`: Int/Long, (vectorId,hash) pair,
-SparseVector, DenseVector). On TPU the hot path never serializes per object
+SparseVector, DenseVector). Here the hot path never serializes per object
 — whole arrays persist via npz (`storage/persist.py`) — but the wire formats
 remain useful for interop (exchanging index artifacts or vectors with
 JVM-side tooling) and are part of the component inventory, so they are

@@ -1,17 +1,15 @@
 """Synthetic ANN corpora, including a HARD one whose recall knobs bind.
 
-The round-2 benches used well-separated clusters (orthogonal unit centers +
-0.05 gaussian noise, e.g. scripts/bench_flat.make_corpus). At D ≥ 96 random
-centers are near-orthogonal and the noise is tiny, so every query's true
-top-10 lives inside its own cluster: IVF recall was bit-identical across
-nprobe 2→64 (results/ivf_deep8m.json, VERDICT r2 "missing #2") — the
-recall-governing knob never bound and the headline number could not
+`easy_clustered` draws well-separated clusters (orthogonal unit centers +
+0.05 gaussian noise). At D ≥ 96 random centers are near-orthogonal and the
+noise is tiny, so every query's true top-10 lives inside its own cluster:
+IVF recall does not move with nprobe, and a headline number cannot
 distinguish a good pruner from a lucky one.
 
 `hard_clustered` fixes that with three ingredients, calibrated so exact-GT
 neighbors straddle cluster boundaries (the property the reference's own
 evaluation relies on — its recall-vs-time curves visibly trade off,
-/root/reference/results.png and README.md:7):
+the reference's results.png and README.md:7):
 
   1. **Hierarchical, overlapping centers.** Centers are perturbations of a
      few parent directions, so neighboring centers are a few degrees apart
@@ -51,7 +49,7 @@ def easy_clustered(
     n: int, d: int, seed: int = 11, n_centers: int = 50_000,
     noise: float = 0.05,
 ) -> np.ndarray:
-    """The round-2 recipe (kept for regression comparisons): orthogonal-ish
+    """The easy recipe (kept for regression comparisons): orthogonal-ish
     unit centers + small gaussian noise. Recall saturates on this corpus —
     use `hard_clustered` for any experiment about recall knobs."""
     rng = np.random.default_rng(seed)

@@ -1,10 +1,10 @@
 """Vector types and dataset text parsers.
 
-TPU-native replacement for the reference's vector layer
+Batched replacement for the reference's vector layer
 (`src/main/scala/mclab/lsh/vector/Vector.scala`). Where the reference keeps
 one JVM object per vector, here vectors live in *batches*: a dense batch is a
 single `[N, D]` array, a sparse batch is padded `[N, nnz_pad]` index/value
-arrays plus per-row lengths — the layouts XLA can tile onto the MXU.
+arrays plus per-row lengths — the layouts XLA compiles to matmuls.
 
 All of the reference's text parsers are reproduced (they are the dataset
 interface, `Vector.scala:162-321`), plus binary fvecs/ivecs loaders the

@@ -1,7 +1,7 @@
 """Slot-folded coarse tier + groupmax query path (coarse_layout="folded").
 
 Covers: tier layout (fold consecutive slots of one table per 128-lane row),
-bit-parity of the XLA rowmax fallback against a numpy oracle, end-to-end
+bit-parity of the packed row max (`rowmax_packed`) against a numpy oracle, end-to-end
 recall parity with the lane-packed tier at equal rerank breadth, per-call
 knob overrides, and checkpoint round-trip (the tier is derived data and is
 rebuilt on load)."""
@@ -14,10 +14,7 @@ import jax.numpy as jnp
 from similaritysearchbyrdf_tpu import DenseBatch, RDFConfig, RDFForest
 from similaritysearchbyrdf_tpu.config import TableConfig
 from similaritysearchbyrdf_tpu.index import forest as forest_mod
-from similaritysearchbyrdf_tpu.ops.pallas.coarse_fold import (
-    I32_DEAD,
-    rowmax_fallback,
-)
+from similaritysearchbyrdf_tpu.index.forest import I32_DEAD, rowmax_packed
 
 
 def _corpus(n=4096, d=32, seed=0):
@@ -98,7 +95,7 @@ def test_rowmax_fallback_matches_numpy_oracle():
     )
     rs[:, -1] = -1                      # a dead window per query
     got = np.asarray(
-        rowmax_fallback(
+        rowmax_packed(
             jnp.asarray(folded), jnp.asarray(qmat), jnp.asarray(table),
             jnp.asarray(rs), wpr=wpr, rpg=rpg, mshift=mshift,
         )
@@ -229,139 +226,12 @@ def test_folded_checkpoint_roundtrip(tmp_path):
     np.testing.assert_array_equal(ids0, ids1)
 
 
-def test_rowmax_kernel_lowers_for_tpu():
-    """Cross-platform Mosaic lowering (jax.export) of pallas_coarse_rowmax
-    at the bench shapes — win {512, 2048, 4096} x cs {16, 32}, including a
-    window count that pads to the grp multiple — so tile-constraint
-    regressions are caught on the CPU CI host before any TPU run (the
-    batch-42 (1, grp*wpr) out-block failure class)."""
-    import jax.export
-
-    from similaritysearchbyrdf_tpu.ops.pallas.coarse_fold import (
-        pallas_coarse_rowmax,
-    )
-
-    rng = np.random.default_rng(13)
-    for (cs, win, mb, b, gsl) in [(16, 512, 16, 8, 64), (16, 2048, 11, 5, 64),
-                                  (16, 4096, 64, 64, 64), (32, 1024, 16, 8, 64),
-                                  # finer selection groups (gsl sweep): rpg 2/1
-                                  (16, 1024, 16, 8, 16), (16, 1024, 16, 8, 8)]:
-        fold = 128 // cs
-        wpr = win // fold
-        rpg = gsl // fold
-        mshift = gsl.bit_length() - 1
-        l_n, capf = 3, max(2 * wpr, 1024)
-        folded = jnp.asarray(
-            rng.integers(-127, 128, (l_n, capf, 128), dtype=np.int8)
-        )
-        qmat = jnp.asarray(
-            rng.integers(-127, 128, (b, fold, 128), dtype=np.int8)
-        )
-        table = jnp.asarray(rng.integers(0, l_n, (b, mb)).astype(np.int32))
-        rs = jnp.asarray(
-            (rng.integers(0, max(1, (capf - wpr) // 8), (b, mb)) * 8).astype(
-                np.int32
-            )
-        )
-
-        def fn(folded, qmat, table, rs):
-            return pallas_coarse_rowmax(
-                folded, qmat, table, rs, wpr=wpr, rpg=rpg, mshift=mshift
-            )
-
-        exp = jax.export.export(jax.jit(fn), platforms=["tpu"])(
-            folded, qmat, table, rs
-        )
-        assert "tpu_custom_call" in exp.mlir_module()
-
-
 def test_folded_requires_int8():
     with pytest.raises(AssertionError):
         RDFForest(_conf("folded", coarse_dtype="bfloat16")).fit(
             DenseBatch(np.arange(256, dtype=np.int64),
                        np.ones((256, 32), np.float32))
         )
-
-
-def test_rowmax_coalesced_matches_fallback(monkeypatch):
-    """max_run > 1 (dyadic DMA run coalescing) must emit bit-identical
-    packed maxima to the per-window kernel / XLA fallback on live windows
-    (interpret mode; adjacency patterns with real +wpr runs)."""
-    from jax.experimental import pallas as pl
-    from similaritysearchbyrdf_tpu.ops.pallas import coarse_fold as cf
-
-    orig = pl.pallas_call
-
-    def patched(*args, **kwargs):
-        kwargs["interpret"] = True
-        return orig(*args, **kwargs)
-
-    monkeypatch.setattr(cf.pl, "pallas_call", patched)
-    rng = np.random.default_rng(21)
-    l_n, capf, lanes = 3, 512, 128
-    cs, fold = 16, 8
-    b, mb, wpr, rpg = 4, 24, 16, 8
-    mshift = 6
-    folded = rng.integers(-127, 128, (l_n, capf, lanes), dtype=np.int8)
-    qi8 = rng.integers(-127, 128, (b, cs), dtype=np.int8)
-    qmat = np.zeros((b, fold, lanes), np.int8)
-    for s in range(fold):
-        qmat[:, s, s * cs:(s + 1) * cs] = qi8
-    table = rng.integers(0, l_n, (b, mb)).astype(np.int32)
-    rs = np.zeros((b, mb), np.int32)
-    for i in range(b):
-        for m in range(mb):
-            if m and rng.random() < 0.6:
-                table[i, m] = table[i, m - 1]
-                rs[i, m] = rs[i, m - 1] + wpr
-            else:
-                rs[i, m] = int(rng.integers(0, (capf - 16 * wpr) // 8)) * 8
-    live = rng.random((b, mb)) > 0.25
-    rs = np.where(live, rs, -1).astype(np.int32)
-
-    args = (jnp.asarray(folded), jnp.asarray(qmat), jnp.asarray(table),
-            jnp.asarray(rs))
-    ref = np.asarray(cf.rowmax_fallback(
-        *args, wpr=wpr, rpg=rpg, mshift=mshift)).reshape(b, mb, wpr)
-    for max_run in (1, 8, 16):
-        got = np.asarray(cf.pallas_coarse_rowmax(
-            *args, wpr=wpr, rpg=rpg, mshift=mshift,
-            max_run=max_run)).reshape(b, mb, wpr)
-        np.testing.assert_array_equal(got[live], ref[live]), max_run
-
-
-def test_rowmax_coalesced_lowers_for_tpu():
-    """Mosaic lowering of the coalesced fold kernel at bench shapes."""
-    import jax.export
-
-    from similaritysearchbyrdf_tpu.ops.pallas.coarse_fold import (
-        pallas_coarse_rowmax,
-    )
-
-    rng = np.random.default_rng(17)
-    cs, win, mb, b, gsl = 16, 512, 16, 8, 8
-    fold = 128 // cs
-    wpr = win // fold
-    rpg = gsl // fold
-    mshift = gsl.bit_length() - 1
-    l_n, capf = 3, 1024
-    folded = jnp.asarray(
-        rng.integers(-127, 128, (l_n, capf, 128), dtype=np.int8))
-    qmat = jnp.asarray(
-        rng.integers(-127, 128, (b, fold, 128), dtype=np.int8))
-    table = jnp.asarray(rng.integers(0, l_n, (b, mb)).astype(np.int32))
-    rs = jnp.asarray(
-        (rng.integers(0, max(1, (capf - wpr) // 8), (b, mb)) * 8).astype(
-            np.int32))
-
-    def fn(folded, qmat, table, rs):
-        return pallas_coarse_rowmax(
-            folded, qmat, table, rs, wpr=wpr, rpg=rpg, mshift=mshift,
-            max_run=8)
-
-    exp = jax.export.export(jax.jit(fn), platforms=["tpu"])(
-        folded, qmat, table, rs)
-    assert "tpu_custom_call" in exp.mlir_module()
 
 
 def test_pca_projection_orders_better_than_random():
@@ -410,20 +280,10 @@ def test_pca_tier_save_load_rebuild(tmp_path):
     np.testing.assert_array_equal(ids0, ids1)
 
 
-def test_rowmax_emit2_fallback_and_kernel_parity(monkeypatch):
-    """emit2: the second output must be each live row's second-best packed
-    value (numpy oracle), and the interpret-mode kernel must match the
-    fallback bit-for-bit."""
-    from jax.experimental import pallas as pl
-    from similaritysearchbyrdf_tpu.ops.pallas import coarse_fold as cf
-
-    orig = pl.pallas_call
-
-    def patched(*args, **kwargs):
-        kwargs["interpret"] = True
-        return orig(*args, **kwargs)
-
-    monkeypatch.setattr(cf.pl, "pallas_call", patched)
+def test_rowmax_emit2_fallback_and_kernel_parity():
+    """emit2: the first output must be each live row's best packed value
+    and the second its second-best (numpy oracle); dead windows emit
+    I32_DEAD on both."""
     rng = np.random.default_rng(29)
     l_n, capf, lanes = 3, 256, 128
     cs, fold = 16, 8
@@ -441,18 +301,11 @@ def test_rowmax_emit2_fallback_and_kernel_parity(monkeypatch):
     rs[:, -1] = -1
     args = (jnp.asarray(folded), jnp.asarray(qmat), jnp.asarray(table),
             jnp.asarray(rs))
-    fb1, fb2 = cf.rowmax_fallback(*args, wpr=wpr, rpg=rpg, mshift=mshift,
-                                  emit2=True)
-    k1, k2 = cf.pallas_coarse_rowmax(*args, wpr=wpr, rpg=rpg,
-                                     mshift=mshift, emit2=True)
-    live = np.repeat(rs >= 0, wpr, axis=1)
-    np.testing.assert_array_equal(np.asarray(k1)[live],
-                                  np.asarray(fb1)[live])
-    np.testing.assert_array_equal(np.asarray(k2)[live],
-                                  np.asarray(fb2)[live])
-    # numpy oracle for one live (query, window)
+    fb1, fb2 = rowmax_packed(*args, wpr=wpr, rpg=rpg, mshift=mshift,
+                             emit2=True)
     fb1 = np.asarray(fb1).reshape(b, mb, wpr)
     fb2 = np.asarray(fb2).reshape(b, mb, wpr)
+    assert (fb1[:, -1] == I32_DEAD).all() and (fb2[:, -1] == I32_DEAD).all()
     for bi in range(b):
         for m in range(mb - 1):
             rows = folded[table[bi, m], rs[bi, m]:rs[bi, m] + wpr]
@@ -472,8 +325,7 @@ def test_folded_slot_keep_recall():
     return valid ids, and be monotone in refine. At smoke scale the
     selection width barely exceeds the refine budget, so slot-keep cannot
     show its coverage advantage (that is a Deep-scale property where
-    width >> refine — measured on TPU, results/deep8m_coarse_fold.json);
-    here we assert it stays within a sane band of whole-group rerank at
+    width >> refine); here we assert it stays within a sane band of whole-group rerank at
     the SAME refine and recovers most of it at double refine."""
     x, q, gt = _corpus()
     batch = DenseBatch(np.arange(len(x), dtype=np.int64), x)
@@ -497,39 +349,6 @@ def test_folded_slot_keep_recall():
     ids2, _ = slot2.query(q, steps=1, query_ids=np.arange(len(q)))
     r2 = _recall(ids2, gt)
     assert r2 >= r1 - 0.02, (r2, r1)
-
-
-def test_rowmax_emit2_lowers_for_tpu():
-    import jax.export
-
-    from similaritysearchbyrdf_tpu.ops.pallas.coarse_fold import (
-        pallas_coarse_rowmax,
-    )
-
-    rng = np.random.default_rng(19)
-    cs, win, mb, b, gsl = 16, 512, 16, 8, 8
-    fold = 128 // cs
-    wpr = win // fold
-    rpg = gsl // fold
-    mshift = gsl.bit_length() - 1
-    l_n, capf = 3, 1024
-    folded = jnp.asarray(
-        rng.integers(-127, 128, (l_n, capf, 128), dtype=np.int8))
-    qmat = jnp.asarray(
-        rng.integers(-127, 128, (b, fold, 128), dtype=np.int8))
-    table = jnp.asarray(rng.integers(0, l_n, (b, mb)).astype(np.int32))
-    rs = jnp.asarray(
-        (rng.integers(0, max(1, (capf - wpr) // 8), (b, mb)) * 8).astype(
-            np.int32))
-
-    def fn(folded, qmat, table, rs):
-        return pallas_coarse_rowmax(
-            folded, qmat, table, rs, wpr=wpr, rpg=rpg, mshift=mshift,
-            emit2=True, max_run=8)
-
-    exp = jax.export.export(jax.jit(fn), platforms=["tpu"])(
-        folded, qmat, table, rs)
-    assert "tpu_custom_call" in exp.mlir_module()
 
 
 def test_staged_rerank_stage2():
@@ -568,43 +387,6 @@ def test_staged_rerank_stage2():
     for row in ids_s:
         live = row[row >= 0]
         assert len(set(live.tolist())) == len(live)
-
-
-def test_rowmax_small_window_lowers_for_tpu():
-    """win=64 at fold=8 (wpr=8) requires the kernel to RAISE grp to the
-    128-multiple floor (the smoke-shape folded config; batch-61 leg-1
-    failure) — and a window count smaller than that floor must pad."""
-    import jax.export
-
-    from similaritysearchbyrdf_tpu.ops.pallas.coarse_fold import (
-        pallas_coarse_rowmax,
-    )
-
-    rng = np.random.default_rng(17)
-    cs, gsl = 16, 8
-    fold = 128 // cs
-    win = 64
-    wpr = win // fold                        # 8 -> floor_grp 16
-    rpg = gsl // fold
-    mshift = gsl.bit_length() - 1
-    for b, mb in [(8, 64), (8, 9)]:          # mb 9 < floor_grp: pads
-        l_n, capf = 3, 1024
-        folded = jnp.asarray(
-            rng.integers(-127, 128, (l_n, capf, 128), dtype=np.int8))
-        qmat = jnp.asarray(
-            rng.integers(-127, 128, (b, fold, 128), dtype=np.int8))
-        table = jnp.asarray(rng.integers(0, l_n, (b, mb)).astype(np.int32))
-        rs = jnp.asarray(
-            (rng.integers(0, (capf - wpr) // 8, (b, mb)) * 8).astype(
-                np.int32))
-
-        def fn(folded, qmat, table, rs):
-            return pallas_coarse_rowmax(
-                folded, qmat, table, rs, wpr=wpr, rpg=rpg, mshift=mshift)
-
-        exp = jax.export.export(jax.jit(fn), platforms=["tpu"])(
-            folded, qmat, table, rs)
-        assert "tpu_custom_call" in exp.mlir_module()
 
 
 def test_staged_rerank_stage2_rpg2():

@@ -106,58 +106,10 @@ def test_grouped_matches_flat():
     qi = jnp.arange(64, dtype=jnp.int32)
     a_ids, a_sc = flat_topk(sk, c, rid, q, qi, 10, refine=64, block=1024)
     b_ids, b_sc = flat_topk_grouped(sk, c, rid, q, qi, 10, refine=64,
-                                    r_groups=32, use_pallas=False)
+                                    r_groups=32)
     # both rescore exactly; the grouped preselect cannot drop a true top-k
     np.testing.assert_allclose(np.asarray(a_sc), np.asarray(b_sc), rtol=1e-5)
     assert (np.asarray(a_ids) == np.asarray(b_ids)).mean() > 0.99
-
-
-def test_groupmax_kernel_interpret():
-    import jax.numpy as jnp
-
-    from similaritysearchbyrdf_tpu.ops.pallas.flat_groupmax import (
-        pallas_flat_groupmax,
-    )
-
-    rng = np.random.default_rng(1)
-    sk = rng.integers(-100, 100, size=(8192, 32)).astype(np.int8)
-    q = rng.integers(-100, 100, size=(16, 32)).astype(np.int8)
-    out = np.asarray(
-        pallas_flat_groupmax(jnp.asarray(sk), jnp.asarray(q), group=64,
-                             block_b=16, block_n=4096, interpret=True)
-    ).T
-    ref_scores = q.astype(np.float32) @ sk.astype(np.float32).T  # [16, 8192]
-    ref = ref_scores.reshape(16, 128, 64).max(axis=-1)
-    np.testing.assert_allclose(out, ref, rtol=1e-2, atol=1.0)
-
-
-def test_groupmax_kernel_pack_arg_interpret():
-    """pack_arg emits int32 score*g + member; the same max tree must carry
-    the group-ARGMAX bit-exactly in both layouts (natural and halved
-    strided) and under nsub pipelining."""
-    import jax.numpy as jnp
-
-    from similaritysearchbyrdf_tpu.ops.flat import stride_for_halved_gmax
-    from similaritysearchbyrdf_tpu.ops.pallas.flat_groupmax import (
-        pallas_flat_groupmax_qmajor,
-    )
-
-    rng = np.random.default_rng(0)
-    npad, d, b, g = 16384, 128, 128, 64
-    sk = rng.integers(-127, 128, size=(npad, d)).astype(np.int8)
-    q = rng.integers(-127, 128, size=(b, d)).astype(np.int8)
-    scores = q.astype(np.int64) @ sk.astype(np.int64).T
-    member = np.arange(npad) % g
-    ref = (scores * g + member[None, :]).reshape(b, npad // g, g).max(-1)
-    for halved in (False, True):
-        skin = (np.asarray(stride_for_halved_gmax(jnp.asarray(sk)))
-                if halved else sk)
-        out = np.asarray(pallas_flat_groupmax_qmajor(
-            jnp.asarray(skin), jnp.asarray(q), group=g, block_b=128,
-            block_n=8192, interpret=True, pack_arg=True, halved=halved,
-            nsub=2))
-        assert out.dtype == np.int32
-        np.testing.assert_array_equal(out.astype(np.int64), ref)
 
 
 def test_argpack_candidates_top1_guarantee():
@@ -181,7 +133,7 @@ def test_argpack_candidates_top1_guarantee():
     qd = jnp.asarray(q)
     qi = jnp.full((b,), -1, jnp.int32)
     ids_a, _ = flat_topk_grouped(sk, c, rid, qd, qi, k, refine=128,
-                                 select_mode="argpack", use_pallas=False,
+                                 select_mode="argpack",
                                  exclude_self=False)
     gt = np.argsort(-(q @ x.T), axis=1)
     ia = np.asarray(ids_a)
@@ -283,9 +235,8 @@ def test_sparse_flat_excludes_self():
 
 
 def test_grouped_large_group_matches_flat():
-    """group > 64 expands into 64-row rescore windows (the DMA kernel's
-    VMEM/SMEM limits cap win at 64); results must still match the plain
-    scan at rescue-proof settings."""
+    """group > 64 expands into several 64-row rescore windows; results
+    must still match the plain scan at rescue-proof settings."""
     import jax.numpy as jnp
 
     from similaritysearchbyrdf_tpu.ops.flat import (
@@ -301,8 +252,7 @@ def test_grouped_large_group_matches_flat():
     a_ids, a_sc = flat_topk(sk, c, rid, q, qi, 10, refine=64, block=1024)
     for group in (256, 512):
         b_ids, b_sc = flat_topk_grouped(sk, c, rid, q, qi, 10, refine=64,
-                                        r_groups=12, group=group,
-                                        use_pallas=False)
+                                        r_groups=12, group=group)
         np.testing.assert_allclose(np.asarray(a_sc), np.asarray(b_sc),
                                    rtol=1e-5)
         assert (np.asarray(a_ids) == np.asarray(b_ids)).mean() > 0.99
@@ -328,8 +278,7 @@ def test_two_level_group_select_is_exact():
     ).astype(jnp.int8)
 
     cand, sel_s = _grouped_candidates(
-        sk, jnp.asarray(q), refine=rg * group, r_groups=rg, group=group,
-        use_pallas=False, recall_target=0.998,
+        sk, jnp.asarray(q), refine=rg * group, r_groups=rg, group=group, recall_target=0.998,
     )
     # reference: exact top-rg groups by group-max of the same quantized dot
     qs = 127.0 / np.abs(q).max(axis=1, keepdims=True)
@@ -357,8 +306,7 @@ def test_two_level_group_select_is_exact():
 def test_select_modes_agree(mode, sg):
     """Every exact select mode (two-level at any supergroup width, flat
     top_k) must pick the same top-RG groups — the two-level row-gather
-    variant exists only to cut the child gather's element count
-    (results/attrib_flat_r03.json: the gather IS the select stage cost)."""
+    variant exists only to cut the child gather's element count."""
     import jax.numpy as jnp
 
     from similaritysearchbyrdf_tpu.ops.flat import _grouped_candidates
@@ -373,13 +321,11 @@ def test_select_modes_agree(mode, sg):
     ).astype(jnp.int8)
 
     base, base_s = _grouped_candidates(
-        sk, jnp.asarray(q), refine=rg * group, r_groups=rg, group=group,
-        use_pallas=False, recall_target=0.998,
+        sk, jnp.asarray(q), refine=rg * group, r_groups=rg, group=group, recall_target=0.998,
         select_mode="topk", select_sg=64,
     )
     got, got_s = _grouped_candidates(
-        sk, jnp.asarray(q), refine=rg * group, r_groups=rg, group=group,
-        use_pallas=False, recall_target=0.998,
+        sk, jnp.asarray(q), refine=rg * group, r_groups=rg, group=group, recall_target=0.998,
         select_mode=mode, select_sg=sg,
     )
     for i in range(b):
@@ -423,54 +369,9 @@ def test_flat_bf16_corpus_tier(mode, tmp_path):
     np.testing.assert_array_equal(ids, ids2)
 
 
-def test_grouped_vmem_safe_batch():
-    """Mid-size corpora must cap the grouped query chunk (XLA VMEM-promotes
-    the full [B, NG] gmax output when NG is small; 200k×784d at B=1024
-    failed the compile with a 25.4 MB scoped-vmem allocation)."""
-    from similaritysearchbyrdf_tpu.ops.flat import grouped_vmem_safe_batch
-
-    # 200k rows -> npad 204800, NG 3200: cap B so 2*B*3200*4 <= 12 MB
-    b = grouped_vmem_safe_batch(200_000, 1024)
-    assert b % 128 == 0 and 2 * b * 3200 * 4 <= (12 << 20), b
-    # large corpora (NG >= 16384) are never promoted: no cap
-    assert grouped_vmem_safe_batch(1_200_000, 1024) == 1024
-    assert grouped_vmem_safe_batch(8_000_000, 1024) == 1024
-    # tiny corpora: NG small but B*NG is tiny too -> effectively uncapped
-    assert grouped_vmem_safe_batch(20_000, 1024) == 1024
-    # the floor is one 128-row block even at pathological NG
-    assert grouped_vmem_safe_batch(8_000_000, 1024, group=1) >= 128
-    # D-aware: at 200k x 784d (dpad 896) the kernel's streamed sketch tile
-    # shares the scoped budget with the promoted output — the cap must
-    # shrink so tile + 2*B*NG*4 fits (the second batch-29 OOM: the
-    # dpad-blind cap of 384 left 384*3200*8 + 2*8192*896 = 24.5 MB)
-    from similaritysearchbyrdf_tpu.ops.flat import _gmax_tile_plan
-
-    b896 = grouped_vmem_safe_batch(200_000, 1024, dpad=896)
-    _, bn896 = _gmax_tile_plan(896)
-    assert b896 % 128 == 0
-    assert 2 * b896 * 3200 * 4 + 2 * bn896 * 896 <= (12 << 20), b896
-
-
-def test_gmax_tile_plan():
-    """Kernel/tile routing: tuned low-D shapes keep the query-major kernel
-    at the full 8192-row tile; high D (where 2*8192*dpad alone crowds the
-    16 MB scoped-vmem budget and the qmajor layout pins block_n >=
-    group*128) must fall back to the transposed kernel with the tile
-    shrunk to <= 2 MB."""
-    from similaritysearchbyrdf_tpu.ops.flat import _gmax_tile_plan
-
-    for dpad in (96, 128, 256):
-        assert _gmax_tile_plan(dpad) == (True, 8192), dpad
-    for dpad in (384, 512, 896, 1536):
-        ok, bn = _gmax_tile_plan(dpad)
-        assert not ok
-        assert 2 * bn * dpad <= (4 << 20), (dpad, bn)
-        assert bn % 64 == 0 and 8192 % bn == 0, bn   # tiles npad, whole groups
-
-
 def test_flat_query_chunks_capped_results_match():
-    """The vmem-guard chunking must not change results: query a corpus
-    sized to trigger the cap and compare against one-chunk ground truth."""
+    """Query-batch chunking must not change results: query in several
+    chunks and compare against one-chunk ground truth."""
     rng = np.random.default_rng(9)
     x = rng.normal(size=(3000, 32)).astype(np.float32)
     x /= np.linalg.norm(x, axis=1, keepdims=True)
@@ -484,8 +385,7 @@ def test_flat_query_chunks_capped_results_match():
 
 def test_argpack_l2_sort_matches_approx():
     """The exact 2-operand-sort level-2 must agree with the approx_max_k
-    level-2 (results/bisect_argpack.json motivated the sort formulation:
-    approx_max_k cost 7.41 ms of the 31 ms wall at [1024, 8192]->128)."""
+    level-2."""
     from similaritysearchbyrdf_tpu.ops.flat import (_pad_lanes,
                                                     build_flat_sketch,
                                                     flat_topk_grouped)
@@ -513,9 +413,8 @@ def test_argpack_l2_sort_matches_approx():
 
 
 def test_default_select_sg_mode_dependent(monkeypatch):
-    """Shipped defaults: sg=32 for argpack (packed-key level-1 fold is
-    cheaper than the level-2 gather — results/tune_argpack.json batch 35),
-    sg=64 for exact2; FLAT_SELECT_SG env overrides both."""
+    """Shipped defaults: sg=32 for argpack, sg=64 for exact2;
+    FLAT_SELECT_SG env overrides both."""
     import similaritysearchbyrdf_tpu.ops.flat as F
 
     monkeypatch.setattr(F, "_SELECT_SG_ENV", None)

@@ -1,4 +1,4 @@
-"""Hash kernel parity vs the scalar oracle (the TPU analogue of the
+"""Hash parity vs the scalar oracle (the batched analogue of the
 reference's exact-value suites `AngleHashSuite.scala` / `PStableHashSuite.scala`)."""
 
 import numpy as np

@@ -173,7 +173,7 @@ def test_streamed_build_matches_regular():
     """build_ivf_streamed (host-resident f32, bf16 device tier, chunked
     relayout via donated dynamic_update_slice) must produce the same
     layout invariants and near-identical recall as build_ivf — the 30M
-    single-chip path (VERDICT r2 item 2)."""
+    single-device path."""
     import jax.numpy as jnp
 
     from similaritysearchbyrdf_tpu.ops.ivf import (build_ivf_streamed,
@@ -208,7 +208,7 @@ def test_streamed_build_matches_regular():
     ids, _ = ivf_topk(st.sketch, st.corpus, st.row_ids, st.centroids,
                       st.starts, st.ends, jnp.asarray(q),
                       jnp.arange(32, dtype=jnp.int32), 5, nprobe=kc,
-                      win=64, wb=wb, refine=256, use_pallas=False)
+                      win=64, wb=wb, refine=256)
     ids = np.asarray(ids)
     hits = sum(len(set(map(int, ids[i])) & set(map(int, gt[i])))
                for i in range(32))
@@ -249,8 +249,8 @@ def test_ivf_heads_masked_mean():
 
 def test_ivf_prune_slot_order_subsequence():
     """Survivor windows must come out in SLOT order (an order-preserving
-    subsequence of the input windows) — the DMA run-coalescer keys on slot
-    adjacency, so score-ordered output would break every run."""
+    subsequence of the input windows), so the window gather after the
+    prune reads rows in address order."""
     import jax.numpy as jnp
 
     from similaritysearchbyrdf_tpu.ops.ivf import _ivf_prune_windows

@@ -121,7 +121,7 @@ def test_sparse_batch_codec_matches_per_record():
 
 
 # ---------------------------------------------------------------------------
-# Golden-bytes fixtures (VERDICT r4 item 7): byte renderings of the JVM wire
+# Golden-bytes fixtures: byte renderings of the JVM wire
 # formats generated INDEPENDENTLY from the format spec (java.io.DataOutput +
 # MapDB DataIO varints) by scripts/make_golden_fixtures.py — not by these
 # codecs. Asserting byte equality here closes the "bit-compatible with

@@ -1,5 +1,4 @@
-"""Tiered persistence at many generations (VERDICT r2 item 7: nothing
-measured beyond 2-3 generations)."""
+"""Tiered persistence at many generations (not only 2-3)."""
 
 import numpy as np
 
